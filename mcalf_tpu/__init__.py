@@ -1,7 +1,7 @@
-"""MC-ALF-TPU: a TPU-native Bayesian absorption-line fitting framework.
+"""MC-ALF-TPU: an accelerator-native Bayesian absorption-line fitting framework.
 
 A ground-up rebuild of the capabilities of matteofox/MC-ALF (Monte-Carlo
-Absorption Line Fitter) designed for TPU hardware: the Voigt forward model,
+Absorption Line Fitter) designed for accelerators: the Voigt forward model,
 Gaussian LSF convolution, likelihood, and the nested sampler itself all run
 on-device under ``jit``, batched over live points and sharded over device
 meshes across sightlines and candidate models.  Host code only does config,

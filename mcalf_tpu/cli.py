@@ -46,19 +46,28 @@ def main(argv=None) -> int:
     os.makedirs(configpars["chaindir"], exist_ok=True)
     os.makedirs(configpars["plotdir"], exist_ok=True)
 
-    # Persistent executable cache (config extension ``[run] compile_cache``
-    # or the MCALF_TPU_COMPILE_CACHE env var): repeat fits of the same
-    # model shape skip XLA recompilation -- roughly half of a cold
-    # flagship fit's wall-clock (utils/compile_cache.py).  Must run before
-    # the first jax compile, hence before the heavy imports below.
-    if configpars.get("compile_cache") or os.environ.get(
-        "MCALF_TPU_COMPILE_CACHE"
-    ):
-        from mcalf_tpu.utils.compile_cache import enable_compile_cache
+    # Plotting needs matplotlib (an optional extra).  Refuse before the
+    # fit, not after it has run for minutes.
+    if configpars["doplot"] or args.debug:
+        import importlib.util
 
-        resolved = enable_compile_cache(configpars.get("compile_cache"))
-        if args.debug and resolved:
-            print(f"[DEBUG]: persistent compile cache at {resolved}")
+        if importlib.util.find_spec("matplotlib") is None:
+            raise SystemExit(
+                "mc-alf-tpu: plotting needs matplotlib, which is not "
+                "installed; set [run] doplot = False (and drop --debug) or "
+                "install the 'plot' extra."
+            )
+
+    # Persistent executable cache (utils/compile_cache.py resolves where:
+    # JAX_COMPILATION_CACHE_DIR, else ``[run] compile_cache``, else the
+    # checkout's .jax_cache/): repeat fits of the same model shape skip
+    # XLA recompilation.  Must run before the first jax compile, hence
+    # before the heavy imports below.
+    from mcalf_tpu.utils.compile_cache import enable_compile_cache
+
+    resolved = enable_compile_cache(configpars.get("compile_cache"))
+    if args.debug:
+        print(f"[DEBUG]: persistent compile cache at {resolved}")
 
     # Heavy imports after arg parsing so --help/--version stay fast.
     from mcalf_tpu.runner import build_model, run_fit, spectrum_subconfigs

@@ -144,7 +144,7 @@ def readconfig(configfile: str) -> Dict[str, Any]:
     )
     # The reference defaults device=cpu (hires_fitter.py:962-965) because its
     # host samplers live there; our fit is the device's whole point, so the
-    # default is the platform JAX picked (TPU when present).  An explicit
+    # default is the platform JAX picked (the GPU when present).  An explicit
     # ``device = cpu`` forces the fit onto CPU in-process (reference
     # cli.py:215-216 semantics).
     device = get("run", "device", "default")

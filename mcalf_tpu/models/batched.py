@@ -18,12 +18,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 
 from mcalf_tpu.models.forward import AbsorptionModel
-from mcalf_tpu.models.jax_model import (
-    StaticSpec,
-    build_consts,
-    resolve_use_pallas,
-    static_spec,
-)
+from mcalf_tpu.models.jax_model import StaticSpec, build_consts, static_spec
 
 __all__ = ["stack_problems", "pad_model_to_npix"]
 
@@ -32,26 +27,13 @@ def stack_problems(
     models: Sequence[AbsorptionModel],
     conv_mode: str = "same_edge",
     gpriors: bool = False,
-    use_pallas: "str | bool" = "auto",
 ) -> Tuple[StaticSpec, Dict[str, Any]]:
     """Stack N fit problems into (shared StaticSpec, data pytree with leading
-    axis N).  Raises if the problems are not structurally identical.
-
-    ``use_pallas='auto'`` applies the same fused-Pallas-kernel policy as
-    :func:`make_jax_forward` (on-TPU + VMEM-fit => enabled), so fleet fits
-    run the production likelihood kernel too."""
+    axis N).  Raises if the problems are not structurally identical."""
     if not models:
         raise ValueError("need at least one model")
-    up, interp = resolve_use_pallas(models[0], use_pallas)
     specs = [
-        static_spec(
-            m,
-            conv_mode=conv_mode,
-            gpriors=gpriors,
-            use_pallas=up,
-            pallas_interpret=interp,
-        )
-        for m in models
+        static_spec(m, conv_mode=conv_mode, gpriors=gpriors) for m in models
     ]
     s0 = specs[0]
     for i, s in enumerate(specs[1:], 1):

@@ -2,7 +2,7 @@
 
 This is the heart of the framework, replacing the reference's ``als_fitter``
 class (/root/reference/mcalf/routines/hires_fitter.py:30-700) with a
-TPU-first design:
+design built for batched device execution:
 
 * :class:`AbsorptionModel` holds the *static* problem definition -- data
   arrays, line list, prior bounds, and the parameter-vector layout -- plus a
@@ -16,8 +16,8 @@ TPU-first design:
   hires_fitter.py:628-661), the whole tau synthesis here is one broadcasted
   elementwise computation over a flattened (component x transition) table of
   shape (..., T, P): no loops, no dynamic control flow, arbitrary leading
-  batch axes (live points, sightlines, models).  XLA fuses it into a single
-  VPU kernel chain.
+  batch axes (live points, sightlines, models).  XLA fuses it into a few
+  elementwise kernels.
 
 Parameter-vector layout (identical to the reference, SURVEY.md section 3.4 /
 hires_fitter.py:168-200)::

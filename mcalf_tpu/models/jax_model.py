@@ -1,8 +1,8 @@
 """Fused, batched JAX forward model + likelihood (the device compute path).
 
 Replaces the reference's ``get_jax_likelihood`` closure factory
-(/root/reference/mcalf/routines/hires_fitter.py:521-695) with a TPU-first
-formulation:
+(/root/reference/mcalf/routines/hires_fitter.py:521-695) with a batched
+formulation that XLA compiles into a few fused kernels:
 
 * tau synthesis is ONE broadcasted elementwise computation over a flattened
   (component x transition) table -- shape (..., T, P) -- instead of nested
@@ -69,10 +69,6 @@ class StaticSpec:
     conv_mode: str
     asymmlike: bool
     has_gpriors: bool
-    #: route tau synthesis through the Pallas TPU kernel
-    use_pallas: bool = False
-    #: run the Pallas kernel in interpret mode (non-TPU backends/tests)
-    pallas_interpret: bool = False
     #: per-transition flag: the prior bound on the damping parameter
     #: a = gamma/(4 pi dnu) is below ops.faddeeva.HARRIS_A_MAX, so the
     #: 3-term Harris expansion (one exp + Dawson polynomial, ~1/6 the cost
@@ -85,9 +81,7 @@ class StaticSpec:
     #: (ops.faddeeva.hjert_harris_win).  The threshold is derived from the
     #: STATIC prior bound on the tau amplitude so the absolute optical-
     #: depth error of the dropped e^{-u^2} stays < 1e-8 per transition.
-    #: Set only for Harris-regime transitions; the fused Pallas kernel
-    #: additionally SKIPS the Harris work for whole 256-pixel chunks whose
-    #: samples are all in the wing (ops/voigt_pallas window flags).
+    #: Set only for Harris-regime transitions.
     win_tmin: tuple = ()
 
 
@@ -95,8 +89,6 @@ def static_spec(
     model: AbsorptionModel,
     conv_mode: str = "same_edge",
     gpriors: bool = False,
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
 ) -> StaticSpec:
     tab = model.transition_table()
     # Worst-case damping per transition over the prior: a is maximal at the
@@ -111,7 +103,7 @@ def static_spec(
     # (N at its upper bound, dnu at its minimum).  Floor at HJERT_WIN_TMIN
     # (the wing polynomial's own validity).  Harris transitions only;
     # MCALF_TPU_WINDOW=0 disables (then every pixel takes the full Harris
-    # evaluation, as in rounds 1-3).
+    # evaluation).
     n_max = model.bounds_hi[tab["pidx"]]
     amp_max = TAU_CONST * 10.0 ** n_max * tab["f"] / dnu_min
     tmin = np.maximum(HJERT_WIN_TMIN, np.log(np.maximum(amp_max, 1e-30) * 1e8))
@@ -131,48 +123,24 @@ def static_spec(
         conv_mode=conv_mode,
         asymmlike=bool(model.asymmlike),
         has_gpriors=bool(gpriors and model.gpriors is not None),
-        use_pallas=bool(use_pallas),
-        pallas_interpret=bool(pallas_interpret),
         harris=tuple(bool(v) for v in harris),
         win_tmin=win_tmin,
     )
 
 
-def build_consts(
-    model: AbsorptionModel, gpriors: bool = False, use_pallas: bool = False
-) -> Dict[str, Any]:
+def build_consts(model: AbsorptionModel, gpriors: bool = False) -> Dict[str, Any]:
     """Device-constant data pytree for one fit problem.  All host
     precomputation happens in float64, then casts to f32."""
     tab = model.transition_table()
     c: Dict[str, Any] = {}
     # c / lambda [Hz] precomputed on host: full precision in the static part.
     c["c_over_wave"] = (CCGS / (model.obj_wl / 1e8)).astype(np.float32)     # (P,)
-    # Wing-window grid geometry (ops.voigt_pallas.window_offsets): pixel
-    # index as an affine function of log(c/lam), fit in f64 on host, plus
-    # the grid's max deviation from that fit (a CONSERVATIVE pixel margin
-    # -- exact for log-uniform grids, graceful fallback for irregular
-    # ones).  [log cw[0], alpha, dev]; searchsorted on TPU measured 3.7
-    # us/eval (gathers), this analytic form is ~free.
-    q = np.log(np.asarray(c["c_over_wave"], np.float64))
-    P = q.size
-    alpha = (q[0] - q[-1]) / max(P - 1, 1)
-    if alpha > 0:
-        p_pred = (q[0] - q) / alpha
-        dev = float(np.max(np.abs(np.arange(P) - p_pred)))
-    else:  # degenerate / non-monotone grid: windowing disabled downstream
-        alpha, dev = 1.0, float(P)
-    c["wingrid"] = np.array([q[0], alpha, dev], np.float32)
     c["data"] = model.obj.astype(np.float32)                                # (P,)
     c["valid"] = model.valid                                                # (P,)
     c["ivar"] = np.where(
         model.valid, 1.0 / np.where(model.valid, model.obj_noise, 1.0) ** 2, 0.0
     ).astype(np.float32)
     c["noise"] = np.where(model.valid, model.obj_noise, np.inf).astype(np.float32)
-    # 1/noise with invalid pixels zeroed: multiplying residuals by this
-    # excludes them from the asymmlike outlier counts (fused-kernel path).
-    c["inv_noise"] = np.where(
-        model.valid, 1.0 / np.where(model.valid, model.obj_noise, 1.0), 0.0
-    ).astype(np.float32)
 
     # Per-transition tables (layout indices are static, see StaticSpec).
     c["pidx"] = tab["pidx"]                                                 # (T,)
@@ -252,19 +220,49 @@ def _head(p, c, s: StaticSpec):
     return specres, cont
 
 
+def synth_tau(dz, gain, avoigt, dnu, c, s: StaticSpec):
+    """Optical depth tau (..., P) = sum_t gain_t H(u_t, a_t) over the
+    transition table, from per-(sample, transition) tables of shape
+    (..., T): redshift offsets ``dz`` = z - zmid, amplitudes ``gain`` (zero
+    for inactive components), damping ``avoigt`` and Doppler widths
+    ``dnu``.
+
+    The sum is a statically unrolled loop: each step is elementwise on a
+    (..., P) block, so XLA fuses the whole sum into one kernel instead of
+    materializing a (..., T, P) intermediate."""
+    T = int(c["pidx"].shape[0])
+    tau = jnp.zeros(dz.shape[:-1] + (s.npix,), jnp.float32)
+    # Per-(sample, transition) scalars hoisted out of the pixel axis --
+    # in particular the reciprocal of dnu, so the per-pixel u costs one
+    # fma + one mul instead of a division.
+    idnu = 1.0 / dnu
+    for t in range(T):
+        # u(wave) = (D0 + dz c/wave) * (1/dnu) on a (..., P) block
+        u = (
+            c["d0"][t] + dz[..., t : t + 1] * c["c_over_wave"]
+        ) * idnu[..., t : t + 1]
+        # Trace-time choice per transition: windowed Harris (wing tail
+        # beyond the static u^2 threshold, see StaticSpec.win_tmin) /
+        # plain Harris when the prior bound guarantees small damping
+        # (s.harris) / the full 916/asymptotic evaluation otherwise.
+        a_t = avoigt[..., t : t + 1]
+        if s.win_tmin and s.win_tmin[t] > 0.0:
+            H = hjert_harris_win(u, a_t, s.win_tmin[t])
+        elif s.harris[t]:
+            H = hjert_harris(u, a_t)
+        else:
+            H = hjert(u, a_t)
+        tau = tau + gain[..., t : t + 1] * H
+    return tau
+
+
 def reconstruct_core(p, c, s: StaticSpec, dz=None):
     """Model flux for physical parameters p of shape (..., ndim).
 
     ``dz``: optional (..., T) high-precision redshift offsets z - zmid (see
     build_consts); when None they are recovered from ``p`` in f32 (adequate
     for plotting / chi2-at-medians; the sampler path supplies cube-derived
-    offsets through :func:`loglike_cube_core`).
-
-    The tau synthesis accumulates over the transition table with a statically
-    unrolled loop: each step is elementwise on a (..., P) block, keeping the
-    working set VMEM-sized instead of materializing a (..., T, P)
-    intermediate (measured 1.4x faster sustained on v5e at batch >= 200, and
-    bitwise identical)."""
+    offsets through :func:`loglike_cube_core`)."""
     p = jnp.asarray(p, jnp.float32)
     specres, cont = _head(p, c, s)
     nact = jnp.floor(p[..., s.startind])                   # (...,)
@@ -280,47 +278,7 @@ def reconstruct_core(p, c, s: StaticSpec, dz=None):
     amp = TAU_CONST * jnp.power(10.0, N) * c["f"] / dnu    # (..., T)
     active = ((c["comp_id"] < nact[..., None]) | c["is_fill"]).astype(jnp.float32)
 
-    T = int(c["pidx"].shape[0])
-    if s.use_pallas:
-        from mcalf_tpu.ops.voigt_pallas import voigt_tau_pallas
-
-        batch_shape = p.shape[:-1]
-        gain = (active * amp).reshape((-1, T))
-        tau = voigt_tau_pallas(
-            dz.reshape((-1, T)),
-            gain,
-            avoigt.reshape((-1, T)),
-            dnu.reshape((-1, T)),
-            c["d0"],
-            c["c_over_wave"],
-            interpret=s.pallas_interpret,
-            harris=s.harris,
-            win_tmin=s.win_tmin,
-        ).reshape(batch_shape + (s.npix,))
-    else:
-        tau = jnp.zeros(p.shape[:-1] + (s.npix,), jnp.float32)
-        # Per-(sample, transition) scalars hoisted out of the pixel axis --
-        # in particular the reciprocal of dnu, so the per-pixel u costs one
-        # fma + one mul instead of a division.
-        idnu = 1.0 / dnu
-        for t in range(T):
-            # u(wave) = (D0 + dz c/wave) * (1/dnu) on a (..., P) block
-            u = (
-                c["d0"][t] + dz[..., t : t + 1] * c["c_over_wave"]
-            ) * idnu[..., t : t + 1]
-            # Trace-time choice per transition: windowed Harris (wing tail
-            # beyond the static u^2 threshold, see StaticSpec.win_tmin) /
-            # plain Harris when the prior bound guarantees small damping
-            # (s.harris) / the full 916/asymptotic evaluation otherwise.
-            a_t = avoigt[..., t : t + 1]
-            if s.win_tmin and s.win_tmin[t] > 0.0:
-                H = hjert_harris_win(u, a_t, s.win_tmin[t])
-            elif s.harris[t]:
-                H = hjert_harris(u, a_t)
-            else:
-                H = hjert(u, a_t)
-            tau = tau + (active[..., t : t + 1] * amp[..., t : t + 1]) * H
-
+    tau = synth_tau(dz, active * amp, avoigt, dnu, c, s)   # (..., P)
     flux_model = jnp.exp(-tau)                             # (..., P)
 
     if s.half > 0:
@@ -336,85 +294,8 @@ def chi2_core(p, c, s: StaticSpec):
     return jnp.sum(c["ivar"] * r * r, axis=-1)
 
 
-def _loglike_pallas(p, c, s: StaticSpec, dz=None):
-    """Whole-likelihood fused Pallas path: tau -> exp -> LSF conv -> chi^2
-    (+ asymmlike counts) in ONE kernel with no (B, P) HBM intermediates
-    (ops.voigt_pallas.likelihood_pallas); only the Gaussian-prior term (a
-    (B, ndim) elementwise sum) stays in XLA.  Numerically equivalent to the
-    XLA path to f32 roundoff (tests/test_voigt_pallas.py)."""
-    from mcalf_tpu.ops.voigt_pallas import likelihood_pallas
-
-    specres, cont = _head(p, c, s)
-    nact = jnp.floor(p[..., s.startind])
-    pidx = c["pidx"]
-    N = p[..., pidx]
-    b = p[..., pidx + 2]
-    if dz is None:
-        dz = p[..., pidx + 1] - c["zmid"]
-    dnu = b * 1e5 * c["inv_wrest_cm"]
-    avoigt = c["gamma"] / (4.0 * jnp.pi * dnu)
-    amp = TAU_CONST * jnp.power(10.0, N) * c["f"] / dnu
-    active = ((c["comp_id"] < nact[..., None]) | c["is_fill"]).astype(
-        jnp.float32
-    )
-
-    batch = p.shape[:-1]
-    T = int(pidx.shape[0])
-    gain = (active * amp).reshape((-1, T))
-    B = gain.shape[0]
-    if s.half > 0:
-        sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
-        kern = gaussian_kernel(jnp.asarray(sigma_pix, jnp.float32), s.half)
-        kern = jnp.broadcast_to(kern, batch + kern.shape[-1:]).reshape(
-            (B, 2 * s.half + 1)
-        )
-    else:
-        kern = jnp.ones((B, 1), jnp.float32)
-    cont_b = jnp.broadcast_to(jnp.asarray(cont, jnp.float32), batch).reshape(
-        (B,)
-    )
-
-    chi2, n4, n5 = likelihood_pallas(
-        dz.reshape((-1, T)),
-        gain,
-        avoigt.reshape((-1, T)),
-        dnu.reshape((-1, T)),
-        c["d0"],
-        c["c_over_wave"],
-        c["data"],
-        c["ivar"],
-        c["inv_noise"],
-        kern,
-        cont_b,
-        # per-transition tables + grid geometry for the wing-window placement
-        zmid=c["zmid"],
-        nu0=CCGS * c["inv_wrest_cm"],
-        wingrid=c["wingrid"],
-        interpret=s.pallas_interpret,
-        harris=s.harris,
-        half=s.half,
-        asymm=s.asymmlike,
-        win_tmin=s.win_tmin,
-    )
-    chi2 = chi2.reshape(batch)
-    ll = -0.5 * (chi2 + c["const_term"])
-    if s.asymmlike:
-        n4 = n4.reshape(batch)
-        n5 = n5.reshape(batch)
-        bad = (n5 > c["cdf5"] + c["grace"]) | (n4 > c["cdf4"] + c["grace"])
-        ll = jnp.where(bad, -jnp.inf, ll)
-    if s.has_gpriors:
-        d = p - c["gp_mu"]
-        ll = ll - 0.5 * (
-            jnp.sum(d * d * c["gp_isig2"], axis=-1) + c["gp_norm"]
-        )
-    return ll
-
-
 def loglike_core(p, c, s: StaticSpec, dz=None):
     p = jnp.asarray(p, jnp.float32)
-    if s.use_pallas and s.conv_mode == "same_edge":
-        return _loglike_pallas(p, c, s, dz=dz)
     m = reconstruct_core(p, c, s, dz=dz)
     r = c["data"] - m
     c2 = jnp.sum(c["ivar"] * r * r, axis=-1)
@@ -445,6 +326,34 @@ def loglike_cube_core(u, c, s: StaticSpec):
     return loglike_core(cube_to_params_core(u, c), c, s, dz=dz)
 
 
+#: Largest flux error of the float32 device forward model against the
+#: float64 host model (AbsorptionModel.reconstruct_spec): the quantisation
+#: of the forward model's float32 parameters, measured at the line cores
+#: (tests/test_forward.py: 2.64e-4).
+F32_FLUX_EPS = 3e-4
+#: float32 rounding of the chi^2 sum and of the constant term, relative
+F32_SUM_RTOL = 1e-6
+
+
+def lnl_tolerance(resid, ivar, lnl):
+    """Largest |lnL_device - lnL_host| the float32 forward model allows.
+
+    A flux error |dm| <= F32_FLUX_EPS moves chi^2 = sum ivar r^2 by at most
+    2 eps sum ivar |r| + eps^2 sum ivar, so lnL = -(chi^2 + const)/2 moves
+    by at most eps sum ivar |r| + eps^2 sum ivar / 2, with r the float64
+    residual; F32_SUM_RTOL adds the float32 rounding of the sum and of
+    the constant.  ``resid``: (n, P) float64 residuals at the valid
+    pixels, ``ivar``: (P,), ``lnl``: (n,) host log-likelihoods.  Returns
+    (n,)."""
+    resid = np.atleast_2d(resid)
+    const = float(np.sum(np.log(2.0 * np.pi / ivar)))
+    return (
+        F32_FLUX_EPS * np.sum(ivar * np.abs(resid), axis=-1)
+        + 0.5 * F32_FLUX_EPS**2 * float(np.sum(ivar))
+        + F32_SUM_RTOL * (np.abs(np.asarray(lnl)) + abs(const))
+    )
+
+
 # ---------------------------------------------------------------------------
 # Single-problem convenience bundle.
 # ---------------------------------------------------------------------------
@@ -469,70 +378,21 @@ class JaxForward:
     bounds_hi: Any
 
 
-def resolve_use_pallas(
-    model: AbsorptionModel, use_pallas: "str | bool" = "auto"
-) -> "tuple[bool, bool]":
-    """Resolve the ``use_pallas`` policy for one problem -> (enabled,
-    interpret).  'auto' enables the fused kernel ON TPU when the (T, Pp)
-    D0 table fits comfortably in VMEM (it must stay resident per grid
-    step) and disables it elsewhere; the MCALF_TPU_PALLAS env var
-    overrides either way; True forces it (interpret mode off-TPU, for
-    tests)."""
-    import os
-
-    if use_pallas == "auto":
-        env = os.environ.get("MCALF_TPU_PALLAS", "")
-        if env != "":
-            use_pallas = env not in ("0", "false")
-        else:
-            from mcalf_tpu.ops.voigt_pallas import pallas_supported
-
-            half = model.kernel_half_size()
-            Pp = -(-(model.npix + max(half, 1)) // 128) * 128
-            ntrans = int(model.transition_table()["pidx"].size)
-            use_pallas = pallas_supported() and ntrans * Pp * 4 <= (8 << 20)
-    interpret = False
-    if use_pallas:
-        from mcalf_tpu.ops.voigt_pallas import pallas_supported
-
-        interpret = not pallas_supported()
-    return bool(use_pallas), interpret
-
-
 def make_jax_forward(
     model: AbsorptionModel,
     conv_mode: str = "same_edge",
     gpriors: bool = False,
-    use_pallas: str | bool = "auto",
 ) -> JaxForward:
     """Build the device forward model for an :class:`AbsorptionModel`.
 
     ``conv_mode='same_edge'`` reproduces the reference JAX-likelihood
     convolution semantics (parity target for fits); ``'wrap'`` reproduces the
     numpy/plot/mock path on device.
-
-    ``use_pallas``: route the likelihood through the fused Pallas TPU
-    kernel (ops/voigt_pallas.likelihood_pallas: tau -> exp -> LSF conv ->
-    chi^2 in ONE kernel) and tau synthesis through voigt_tau_pallas.
-    'auto' (default) enables it ON TPU when the per-tile constant tables
-    fit VMEM -- measured +5-11% over the XLA path at production batches
-    (BENCH_r03 pallas_fused_vs_xla) -- and disables it elsewhere
-    (interpret mode is for tests only).  MCALF_TPU_PALLAS=0/1 overrides;
-    True forces it (interpret mode off-TPU, for tests).
     """
-    use_pallas, interpret = resolve_use_pallas(model, use_pallas)
-    s = static_spec(
-        model,
-        conv_mode=conv_mode,
-        gpriors=gpriors,
-        use_pallas=bool(use_pallas),
-        pallas_interpret=interpret,
-    )
+    s = static_spec(model, conv_mode=conv_mode, gpriors=gpriors)
     c = {
         k: jnp.asarray(v)
-        for k, v in build_consts(
-            model, gpriors=gpriors, use_pallas=bool(use_pallas)
-        ).items()
+        for k, v in build_consts(model, gpriors=gpriors).items()
     }
 
     return JaxForward(

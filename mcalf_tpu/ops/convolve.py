@@ -1,4 +1,4 @@
-"""Gaussian line-spread-function convolution, batched and TPU-friendly.
+"""Gaussian line-spread-function convolution, batched and fusible by XLA.
 
 Two exact semantics are provided because the reference has two (deliberately
 different) convolution paths:
@@ -14,7 +14,7 @@ different) convolution paths:
 
 The implementation is a statically-unrolled shifted-slice accumulation over
 the (small, static) kernel support: for K taps it is K fused multiply-adds
-over the whole batch, which XLA maps straight onto the VPU with no gather and
+over the whole batch, which XLA fuses into one elementwise kernel with no gather and
 no dynamic shapes.  It natively supports a *per-sample* kernel width
 (floating ``specres`` sampled by the nested sampler), which a plain
 ``lax.conv`` cannot express.

@@ -1,11 +1,11 @@
-"""Vectorized Voigt--Hjerting / Faddeeva special functions for TPU.
+"""Vectorized Voigt--Hjerting / Faddeeva special functions for the device.
 
 Computes H(u, a) = Re[w(u + i a)] where w is the Faddeeva function, the
 kernel of the Voigt absorption profile.  Everything here is elementwise and
 fully vectorized: inputs are arrays of any (broadcastable) shape and the
-functions evaluate on the VPU in a single fused XLA computation -- there is
-no per-element ``vmap`` and no data-dependent control flow, which is what a
-TPU wants (contrast with the reference, which vmaps a scalar ``hjert`` over
+functions evaluate in a single fused XLA computation -- there is
+no per-element ``vmap`` and no data-dependent control flow, which is what
+an accelerator wants (contrast with the reference, which vmaps a scalar ``hjert`` over
 the wavelength axis: /root/reference/mcalf/routines/voigt_jax.py:121-127 and
 hires_fitter.py:595).
 
@@ -81,7 +81,7 @@ def erfcx(x):
     # Transformed variable in [-1, 1); the two-step form reduces rounding.
     b = (a - 2.0) / (a + 2.0)
     q = (-a * b - 2.0 * (b + 1.0) + a) / (a + 2.0) + b
-    # Statically unrolled Horner (jnp.polyval scans -- not Pallas-lowerable).
+    # Statically unrolled Horner (jnp.polyval scans; unrolling keeps it fusible).
     p = jnp.full_like(q, float(_ERFCX_COEF[0]))
     for coef in np.asarray(_ERFCX_COEF[1:]):
         p = p * q + float(coef)
@@ -109,8 +109,8 @@ def wofz_real_916(x, y):
         C_n = exp(-(2n+1)/4)   (compile-time constant),
 
     so the whole double series costs TWO exponentials (exp(-x^2), exp(x))
-    plus fused multiply-adds.  This is what makes the fused Voigt pipeline
-    VPU-bound rather than transcendental-bound on TPU.  |x| <= sqrt(111)
+    plus fused multiply-adds, so the fused Voigt pipeline is bound by
+    arithmetic rather than by transcendentals.  |x| <= sqrt(111)
     keeps exp(x) and the recurrence in float32 range; accuracy vs scipy is
     preserved to ~3e-6 (tests/test_faddeeva.py).
     """
@@ -187,7 +187,7 @@ def wofz_real_asym(x, y):
     """Asymptotic expansion of Re[w(x + iy)] for large |x + iy|.
 
     w(z) ~ (i / (z sqrt(pi))) * (1 + 1/(2z^2) (1 + 3/(2z^2) (1 + ...))).
-    Written in real arithmetic (no complex dtype) for the VPU.
+    Written in real arithmetic (no complex dtype), which fuses elementwise.
     """
     x = jnp.asarray(x, dtype=jnp.float32)
     y = jnp.asarray(y, dtype=jnp.float32)
@@ -323,9 +323,8 @@ def hjert_wing(x, a):
     tmin) absolute.  At tmin = 21 that is < 1e-9 for any Harris-regime
     damping (a < :data:`HARRIS_A_MAX`).  Cost: one reciprocal + 7 fma --
     ~6x cheaper than the full Harris evaluation (no exp, no 4-region
-    Dawson) -- which is what makes the windowed fused likelihood kernel
-    (ops/voigt_pallas) fast: absorption lines are narrow, so most pixels
-    sit in this wing.
+    Dawson).  Absorption lines are narrow, so most pixels sit in this
+    wing.
     """
     x = jnp.asarray(x, jnp.float32)
     a = jnp.asarray(a, jnp.float32)
@@ -338,11 +337,10 @@ def hjert_harris_win(x, a, tmin=HJERT_WIN_TMIN):
     """Windowed Harris Voigt--Hjerting: ``hjert_harris`` for x^2 < tmin,
     :func:`hjert_wing` outside.
 
-    This is the piecewise function the production likelihood evaluates when
-    windowing is enabled (models/jax_model.StaticSpec.win_tmin): both the
-    XLA path and the fused Pallas kernel compute exactly this selection, so
-    they remain value-identical regardless of which chunks the kernel's
-    flag machinery skips.  ``tmin`` is chosen per transition from the
+    This is the piecewise function the likelihood evaluates when windowing
+    is enabled (models/jax_model.StaticSpec.win_tmin).  ``jnp.where``
+    evaluates both sides, so the selection changes values, not work.
+    ``tmin`` is chosen per transition from the
     STATIC prior bound on the tau amplitude so the absolute optical-depth
     error of the dropped exponential, amp_max * e^{-tmin}, stays below
     1e-8 (models/jax_model.static_spec).
@@ -357,8 +355,8 @@ def hjert(x, a):
 
     Region switch at x^2 + a^2 = 111 between the Algorithm-916 series and the
     asymptotic expansion (same radius as the reference, voigt_jax.py:127).
-    Both branches are evaluated and selected with ``where`` -- branchless, as
-    the VPU requires.
+    Both branches are evaluated and selected with ``where`` -- branchless, so
+    XLA fuses it.
 
     Performance note: only ``x`` is clamped in the far region (exp(x) would
     overflow f32 there); ``a`` is passed through at ITS OWN shape, which is

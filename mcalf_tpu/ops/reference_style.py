@@ -2,7 +2,7 @@
 
 This re-expresses the *computational pattern* of the reference's JAX
 likelihood (/root/reference/mcalf/routines/hires_fitter.py:575-695) so
-``bench.py`` can measure, on identical TPU hardware, what the TPU-first
+``bench.py`` can measure, on identical hardware, what the batched
 redesign buys relative to a faithful translation:
 
 * per-pixel scalar ``vmap`` of the Voigt function (reference :595),

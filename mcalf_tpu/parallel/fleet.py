@@ -6,7 +6,7 @@ seeds -- are stacked on a leading axis (:mod:`mcalf_tpu.models.batched`) and
 ``shard_map``-ped over a 1-D ``jax.sharding.Mesh``.  Each device runs its own
 complete nested-sampling ``while_loop`` to ITS OWN convergence (no lockstep
 barrier, no collectives inside the hot loop -- the fits are embarrassingly
-parallel, so the ICI only carries the final gather).  This replaces the
+parallel, so the interconnect only carries the final gather).  This replaces the
 reference's host-MPI parallelism, which lives inside PolyChord/MultiNest
 (/root/reference/mcalf/cli.py:37-41,116-118,158).
 
@@ -50,9 +50,9 @@ def init_distributed(
 ) -> int:
     """Initialize the multi-host (DCN) runtime and return the process count.
 
-    Wraps ``jax.distributed.initialize``: on TPU pods the arguments are
-    auto-detected from the environment; for multi-process CPU/GPU testing
-    pass them explicitly.  After this, ``jax.devices()`` spans all hosts and
+    Wraps ``jax.distributed.initialize``.  Pass the coordinator address,
+    process count and process id explicitly; a single host with several
+    GPUs needs no call at all (one process drives every local card).  After this, ``jax.devices()`` spans all hosts and
     :func:`make_mesh` builds a global mesh, so ``fit_many``/``fit_stacked``
     shard their problem axis across hosts with no further changes -- the
     fits are embarrassingly parallel, so the DCN only carries the final

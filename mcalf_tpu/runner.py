@@ -306,39 +306,26 @@ def chain_basename(configpars: Dict[str, Any]) -> str:
     )
 
 
-def run_fit(
-    configpars: Dict[str, Any],
-    debug: bool = False,
-    model: Optional[AbsorptionModel] = None,
-) -> Tuple[NSResults, str]:
-    """Run the fit and write `.stats` + `_equal_weights.txt`.
-
-    Returns (NSResults, chain basename)."""
+def report_device() -> None:
+    """Say which platform and device kind the fit runs on: JAX falls back
+    to the CPU without a word when it finds no accelerator."""
     import jax
 
-    specfiles = configpars.get("specfiles") or []
-    if len(specfiles) > 1 and model is None:
-        return _run_spectrum_fleet(configpars, debug=debug)
+    devs = jax.devices()
+    print(
+        f"Fitting on {devs[0].platform} ({devs[0].device_kind}), "
+        f"{len(devs)} device(s)"
+    )
 
-    if configpars.get("ncomp_grid"):
-        return _run_ncomp_grid(configpars, debug=debug)
 
-    device = str(configpars.get("device", "default")).lower()
-    if device == "cpu":
-        # Force the fit onto CPU in-process (reference cli.py:215-216).  Must
-        # run before the first backend touch; if a backend is already live
-        # (e.g. an earlier fit in this process) the platform cannot change.
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except RuntimeError:
-            print("WARNING: device=cpu requested but a JAX backend is already "
-                  "initialized; continuing on the existing platform.")
-
-    if model is None:
-        model = build_model(configpars, debug=debug)
-    fwd = make_jax_forward(model, gpriors=model.gpriors is not None)
+def fit_config(
+    configpars: Dict[str, Any], model: AbsorptionModel
+) -> Tuple[SolverPlan, "NSConfig"]:
+    """The solver plan and sampler configuration :func:`run_fit` uses for
+    ``model``: the solver mapping (:func:`solver_nsconfig`), the
+    trans-dimensional repeats default and the label-symmetry gauge."""
     plan = solver_nsconfig(configpars, model.ndim)
-    cfg, resample_S, dynamic = plan.cfg, plan.resample_S, plan.dynamic
+    cfg = plan.cfg
     if cfg.num_repeats == 0:
         if transdim_counts_as_difficult(cfg, model):
             import dataclasses
@@ -370,6 +357,43 @@ def run_fit(
         import dataclasses
 
         cfg = dataclasses.replace(cfg, canon_layout=layout)
+    return plan, cfg
+
+
+def run_fit(
+    configpars: Dict[str, Any],
+    debug: bool = False,
+    model: Optional[AbsorptionModel] = None,
+) -> Tuple[NSResults, str]:
+    """Run the fit and write `.stats` + `_equal_weights.txt`.
+
+    Returns (NSResults, chain basename)."""
+    import jax
+
+    specfiles = configpars.get("specfiles") or []
+    if len(specfiles) > 1 and model is None:
+        return _run_spectrum_fleet(configpars, debug=debug)
+
+    if configpars.get("ncomp_grid"):
+        return _run_ncomp_grid(configpars, debug=debug)
+
+    device = str(configpars.get("device", "default")).lower()
+    if device == "cpu":
+        # Force the fit onto CPU in-process (reference cli.py:215-216).  Must
+        # run before the first backend touch; if a backend is already live
+        # (e.g. an earlier fit in this process) the platform cannot change.
+        try:
+            jax.config.update("jax_platforms", "cpu")
+        except RuntimeError:
+            print("WARNING: device=cpu requested but a JAX backend is already "
+                  "initialized; continuing on the existing platform.")
+    report_device()
+
+    if model is None:
+        model = build_model(configpars, debug=debug)
+    fwd = make_jax_forward(model, gpriors=model.gpriors is not None)
+    plan, cfg = fit_config(configpars, model)
+    resample_S, dynamic = plan.resample_S, plan.dynamic
 
     if debug:
         print(
@@ -599,7 +623,12 @@ def run_fit(
         runs_to_check = [
             (f"seed{i} ", r) for i, r in enumerate(conv.results)
         ]
-    stats_extra = []
+    # Run provenance as comment lines: whether the evidence converged and
+    # what the first run cost, in likelihood evaluations.
+    stats_extra = [
+        f"termination = {'max_samples' if unconverged else 'converged'}",
+        f"n_like = {int(res.n_like)}",
+    ]
     if auto_repeats:
         stats_extra.append(
             f"auto_repeats ladder converged={conv.converged} "
@@ -760,6 +789,17 @@ def _run_seed_ensemble(
             keys = jnp.stack([jax.random.PRNGKey(s) for s in seeds])
             batched = fit_stacked(spec, stacked, cfg, keys=keys)
             jax.block_until_ready(batched.logz)
+            # Each device must hold its own seeds' results: a mesh that
+            # quietly piles every shard onto one device would still give
+            # right numbers, at 1/ndev of the speed.
+            shard_devices = sorted(
+                {sh.device.id for sh in batched.logz.addressable_shards}
+            )
+            if len(shard_devices) != ndev:
+                raise RuntimeError(
+                    f"seed shards landed on devices {shard_devices}, "
+                    f"expected {ndev} distinct devices"
+                )
             runs = [
                 jax.tree.map(lambda a, i=i: a[i], batched)
                 for i in range(len(seeds))
@@ -808,6 +848,8 @@ def _run_seed_ensemble(
         f"merged {len(seeds)} seeds {list(seeds)} by birth contours; "
         f"seed spread = {spread:.3f}"
     )
+    if use_mesh:
+        stats_extra.append(f"seeds sharded over devices {shard_devices}")
     _write_chain_files(base, fwd, merged, resample_S, stats_extra)
     print(f"Saved merged ensemble results to {base}_equal_weights.txt")
     return merged, base
@@ -916,6 +958,8 @@ def _run_spectrum_fleet(configpars, debug=False):
     use_mesh = (
         plain and not probe.dynamic and ndev > 1 and len(subs) % ndev == 0
     )
+    if use_mesh:
+        report_device()
 
     if use_mesh:
         try:

@@ -6,7 +6,7 @@ ellipsoidal/multimodal (cli.py:179-182): both recognize when the
 constrained-prior region fragments into separated modes (for absorption
 fits: alternative redshift solutions for the same lines) and adapt the
 proposal geometry per mode.  This module is the host-side half of the
-TPU-native version: a cheap, deterministic recursive 2-means in whitened
+on-device version: a cheap, deterministic recursive 2-means in whitened
 space, run at chunk boundaries (once per ~hundreds of likelihood batches),
 whose labels feed the per-cluster direction mixture in
 :func:`mcalf_tpu.sampler.nested.slice_chains`.

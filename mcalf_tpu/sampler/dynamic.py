@@ -7,7 +7,7 @@ resolution per likelihood call.  Higson et al. (2019) showed dynamic NS is
 equivalent to MERGING nested-sampling runs whose live points are born at a
 likelihood threshold inside the posterior bulk -- which is exactly what the
 birth-contour merge in :mod:`mcalf_tpu.sampler.merge` computes.  So the
-TPU-native implementation is:
+on-device implementation is:
 
 1. run a standard ("base") nested-sampling pass;
 2. pick the boost threshold L_init where the cumulative posterior mass

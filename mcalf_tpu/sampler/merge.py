@@ -10,7 +10,7 @@ merged live-point count is
 
 and the merged volume shrinks by E[d ln X] = -1/n(L_i) at each death,
 processed in increasing-death order.  This gives sqrt(K)-smaller evidence
-errors and a denser posterior -- and fits the TPU fleet model perfectly:
+errors and a denser posterior -- and fits the device-fleet model perfectly:
 ``parallel.fit_many`` the same problem with K seeds across the mesh, then
 merge.  (This also reproduces each run's own bookkeeping when applied to a
 single run, which is the invariant test.)

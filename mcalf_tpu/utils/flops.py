@@ -1,9 +1,8 @@
 """Automatic FLOP census of a jitted function, from its jaxpr.
 
-Replaces the hand FLOP formula the round-4 bench used for utilization
-accounting (it under-counted the Harris-path math ~2x: 62 FLOP per
-(transition, pixel) against a censused ~109), and makes the counting
-policy explicit and testable instead of folklore.
+Replaces a hand FLOP formula (it under-counted the Harris-path math ~2x:
+62 FLOP per (transition, pixel) against a censused ~109), and makes the
+counting policy explicit and testable instead of folklore.
 
 Counting policy (``FLOP_WEIGHTS``):
 
@@ -11,15 +10,15 @@ Counting policy (``FLOP_WEIGHTS``):
   output element.  A hardware-fused multiply-add therefore counts 2,
   matching the roofline convention (FMA = 2 FLOP).
 * transcendentals (exp/log/sqrt/pow/...) -- 1 FLOP per output element.
-  This is a deliberate LOWER bound: on the TPU VPU a transcendental
-  costs several issue slots, so utilization computed from this census
+  This is a deliberate LOWER bound: on a GPU a transcendental costs
+  several instructions (special-function unit plus fix-up), so utilization computed from this census
   slightly UNDERSTATES true pipe occupancy.  Stated here so the number
   is interpretable; never silently inflated.
 * reductions (reduce_sum/reduce_max/...) -- one op per INPUT element
   (n inputs -> n-1 combines, counted as n).
 * dot_general -- 2*M*N*K.
 * comparisons, selects, data movement (broadcast/slice/pad/gather/
-  transpose/...) -- 0 FLOPs.  They occupy VPU issue slots but move or
+  transpose/...) -- 0 FLOPs.  They occupy issue slots but move or
   choose data rather than compute; counting them would inflate
   utilization with non-arithmetic.
 

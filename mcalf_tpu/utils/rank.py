@@ -21,7 +21,7 @@ def is_rank0() -> bool:
     1. ``jax.distributed``'s global state (set by ``init_distributed`` /
        ``jax.distributed.initialize`` -- the multi-host fleet case);
     2. ``jax.process_index()`` if a backend already exists (auto-initialized
-       multi-process TPU pods);
+       multi-process clusters);
     3. rank 0 otherwise (single-process runs, or anything unresolvable --
        printing twice beats swallowing output on a misdetected rank).
     """

@@ -31,7 +31,7 @@ def test_every_line_physical():
 
 
 def test_breadth_vs_linetools_namespace():
-    # Round-5 coverage target (VERDICT round 4): >= 150 transitions so the
+    # Coverage target: >= 150 transitions so the
     # common linetools-ISM names a reference config can ask for resolve.
     names = available_lines()
     assert len(names) >= 150, len(names)

@@ -1,4 +1,6 @@
-"""Config-system tests: reference fit.cfg compatibility + defaults."""
+"""Config-system tests: fit.cfg compatibility + defaults."""
+
+import os
 
 import numpy as np
 import pytest
@@ -8,9 +10,10 @@ from mcalf_tpu.runner import solver_nsconfig
 
 
 def test_reads_reference_fit_cfg(testdata_dir):
-    # The reference's shipped config must parse unchanged.
+    # The shipped flagship config (the reference's fit.cfg in the repo's
+    # mock layout, mcalf_tpu/mocks.FIT_CFG) must parse unchanged.
     cfg = readconfig(f"{testdata_dir}/fit.cfg")
-    assert cfg["specfile"] == "./testdata/civ_mock_spec_multicomp.txt"
+    assert cfg["specfile"] == "testdata/civ_mock_spec_multicomp.txt"
     assert cfg["wavefit"] == [(6180.0, 6220.0)]
     assert cfg["linelist"] == ["CIV 1548", "CIV 1550"]
     assert cfg["coldef"] == ["Wave", "Flux", "Err"]
@@ -24,10 +27,13 @@ def test_reads_reference_fit_cfg(testdata_dir):
     assert cfg["chaindir"] == "testdata/output/fits/"
     assert cfg["plotdir"] == "testdata/output/plots/"
     assert cfg["chainfmt"] == "pc_fits_{0}"
-    assert cfg["jaxns_settings"]["max_samples"] == "2000"
+    # the reference ships max_samples = 2000, which caps the fit before it
+    # converges; the repo's config raises it (testdata/fit.cfg:29-31)
+    assert cfg["jaxns_settings"]["max_samples"] == "40000"
+    assert cfg["jaxns_settings"]["num_live_points"] == "200"
     assert cfg["jaxns_settings"]["difficult_model"] is True
-    assert cfg["pc_settings"]["nlive"] == "150"
-    assert cfg["nmaxcols"] == 3
+    assert "pc_settings" not in cfg
+    assert cfg["nmaxcols"] == 5
     assert cfg["dofit"] is True and cfg["doplot"] is True
 
 
@@ -104,22 +110,35 @@ def test_solver_mapping(testdata_dir):
     cfg = readconfig(f"{testdata_dir}/fit.cfg")
     plan = solver_nsconfig(cfg, ndim=34)
     ns = plan.cfg
-    # jaxns settings from fit.cfg: max_samples=2000, nlive=200, difficult.
+    # jaxns settings from fit.cfg: max_samples=40000, nlive=200, difficult.
     assert ns.nlive == 200
-    assert ns.max_samples == 2000
+    assert ns.max_samples == 40000
     assert ns.difficult_model is True
-    assert plan.resample_S == 2000
+    assert plan.resample_S == 40000
     # polychord mapping picks up pc_settings.
-    cfg2 = dict(cfg, solver="polychord")
+    cfg2 = dict(
+        cfg,
+        solver="polychord",
+        pc_settings={
+            "nlive": "150", "num_repeats": "25",
+            "precision_criterion": "0.01",
+            "read_resume": False, "write_resume": False,
+        },
+    )
     plan2 = solver_nsconfig(cfg2, ndim=34)
     assert plan2.cfg.nlive == 150
     assert plan2.cfg.num_repeats == 25
     assert plan2.cfg.precision_criterion == 0.01
     assert plan2.resample_S == 0
     # The reference's shipped fit.cfg sets the resume keys False
-    # (testdata/fit.cfg:53-54) -- they must be honored, not dropped.
+    # (its [pc_settings]) -- they must be honored, not dropped.
     assert plan2.read_resume is False
     assert plan2.write_resume is False
+    # without a [pc_settings] section the polychord defaults apply and the
+    # resume machinery stays off
+    plan3 = solver_nsconfig(dict(cfg, solver="polychord"), ndim=34)
+    assert plan3.cfg.nlive == 100 and plan3.cfg.num_repeats == 0
+    assert not plan3.read_resume and not plan3.write_resume
     with pytest.raises(ValueError):
         solver_nsconfig(dict(cfg, solver="emcee"), ndim=4)
 
@@ -266,7 +285,7 @@ datadir = {tmp_path}/
     assert pars["specfile"].endswith("one.txt")
 
 
-def test_compile_cache_surface(tmp_path):
+def test_compile_cache_surface(tmp_path, monkeypatch):
     # Config key round-trips; default is unset.
     p = tmp_path / "cc.cfg"
     p.write_text(
@@ -285,19 +304,14 @@ def test_compile_cache_surface(tmp_path):
 
     from mcalf_tpu.utils import enable_compile_cache
 
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     old_dir = jax.config.jax_compilation_cache_dir
     old_min = jax.config.jax_persistent_cache_min_compile_time_secs
-    old_loc = jax.config.jax_traceback_in_locations_limit
     try:
         got = enable_compile_cache(str(tmp_path / "cc"))
         assert got == str(tmp_path / "cc")
         assert (tmp_path / "cc").is_dir()
         assert jax.config.jax_compilation_cache_dir == got
-        # entry-script-independent keys: user frames must be dropped from
-        # MLIR locations (they leak into the Mosaic payload's string
-        # table, which the key's strip-debuginfo pass cannot reach --
-        # see compile_cache.py)
-        assert jax.config.jax_traceback_in_locations_limit == 0
         assert enable_compile_cache("off") is None
         assert enable_compile_cache("") is None  # empty env fallthrough
         # off-sentinels are case/whitespace-insensitive: OFF must not
@@ -310,7 +324,6 @@ def test_compile_cache_surface(tmp_path):
         jax.config.update(
             "jax_persistent_cache_min_compile_time_secs", old_min
         )
-        jax.config.update("jax_traceback_in_locations_limit", old_loc)
 
 
 def test_transdim_default_counts_as_difficult():
@@ -335,4 +348,112 @@ def test_transdim_default_counts_as_difficult():
     )
     assert not transdim_counts_as_difficult(
         plan2.cfg, SimpleNamespace(ncomp=(8, 11))
+    )
+
+
+@pytest.mark.parametrize(
+    "env, explicit, want",
+    [
+        ("env", "explicit", "env"),      # placed from outside: always wins
+        ("env", "off", "env"),
+        (None, "explicit", "explicit"),  # then [run] compile_cache
+        (None, "off", None),             # 'off' disables
+        (None, None, "default"),         # then the checkout's fixed path
+    ],
+)
+def test_cache_dir_resolution_order(tmp_path, monkeypatch, env, explicit, want):
+    import tempfile
+
+    from mcalf_tpu.utils.compile_cache import DEFAULT_CACHE_DIR, resolve_cache_dir
+
+    paths = {"env": str(tmp_path / "env"), "explicit": str(tmp_path / "exp")}
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", paths[env])
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    got = resolve_cache_dir(paths.get(explicit, explicit))
+    assert got == (DEFAULT_CACHE_DIR if want == "default" else paths.get(want))
+    # the fixed path sits in the checkout, never in a temporary directory
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert DEFAULT_CACHE_DIR == os.path.join(repo, ".jax_cache")
+    assert not DEFAULT_CACHE_DIR.startswith(tempfile.gettempdir())
+
+
+def test_cli_run_puts_cache_entries_where_the_env_says(tmp_path, testdata_dir):
+    """A CLI fit (in its own process, so this worker's JAX config is left
+    alone) writes its compile-cache entries to JAX_COMPILATION_CACHE_DIR."""
+    import subprocess
+    import sys
+
+    cfg = tmp_path / "fit.cfg"
+    cfg.write_text(
+        f"""
+[input]
+specfile = civ_mock_spec.txt
+wavefit = 6180,6220
+linelist = CIV 1548, CIV 1550
+coldef = Wave, Flux, Err
+solver = ns
+specres = 8.0
+
+[pathing]
+datadir = {testdata_dir}/
+outdir = {tmp_path}/out/
+chainfmt = cc_{{0}}
+
+[components]
+ncomp = 1,1
+contval = 1
+Nrange = 13.0,14.5
+brange = 10.0,30.0
+zrange = 2.999,3.001
+
+[run]
+dofit = True
+doplot = False
+
+[ns_settings]
+nlive = 20
+num_repeats = 4
+max_samples = 400
+precision_criterion = 0.5
+"""
+    )
+    cache = tmp_path / "cc"
+    env = dict(
+        os.environ, JAX_PLATFORMS="cpu", JAX_COMPILATION_CACHE_DIR=str(cache)
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "mcalf_tpu", "--debug", str(cfg)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert f"persistent compile cache at {cache}" in r.stdout
+    assert "Fitting on cpu" in r.stdout
+    assert any(cache.iterdir()), "no cache entries written"
+
+
+def test_cli_without_matplotlib_stops_before_the_fit(tmp_path, monkeypatch):
+    """matplotlib is an optional extra: with doplot on and no matplotlib the
+    CLI stops with one clear message before fitting anything."""
+    import importlib.util
+
+    from mcalf_tpu import cli
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(
+        importlib.util, "find_spec",
+        lambda name, *a, **k: None if name == "matplotlib" else real(name, *a, **k),
+    )
+    cfg = tmp_path / "p.cfg"
+    cfg.write_text(
+        "[input]\nspecfile = s.txt\nwavefit = 1, 2\nlinelist = CIV 1548\n"
+        f"[pathing]\noutdir = {tmp_path}/out/\n"
+        "[run]\ndoplot = True\n"
+    )
+    with pytest.raises(SystemExit, match="matplotlib"):
+        cli.main([str(cfg)])
+    assert not (tmp_path / "out" / "fits").exists() or not any(
+        (tmp_path / "out" / "fits").iterdir()
     )

@@ -4,7 +4,7 @@ Fits 32 prior-drawn 1-component CIV noise realizations sharded over the
 8-device virtual mesh and asserts the truth's weighted posterior ranks
 are uniform and the central credible intervals cover at their nominal
 rates -- the posterior-side complement of the evidence anchoring in
-tests/test_truth_anchor.py (VERDICT r4 item 5)."""
+tests/test_truth_anchor.py."""
 
 import os
 import sys

@@ -204,12 +204,9 @@ def _deadbirth_logz(dead):
 
 
 def test_xla_only_full_fit_pinned(tmp_path, testdata_dir, monkeypatch):
-    # GPU contract (reference README.md:5 claims CUDA support): the
-    # pure-XLA likelihood path -- what a GPU backend would run, Pallas
-    # force-disabled -- must complete a full fit with a correct evidence.
-    # Pinned by name so the fallback stays a contract, not an accident of
-    # the CPU suite's auto-off policy.
-    monkeypatch.setenv("MCALF_TPU_PALLAS", "0")
+    # The plain-XLA likelihood is the one path on every platform (the GPU
+    # runs exactly this): it must complete a full fit with a correct
+    # evidence.  Pinned by name so the contract stays explicit.
     cfg = tmp_path / "fit.cfg"
     cfg.write_text(
         f"""

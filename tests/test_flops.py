@@ -99,7 +99,7 @@ def test_flagship_likelihood_census_scale():
         specres=[8.0], Nrange=[12.0, 14.5], brange=[10.0, 40.0],
         zrange=[2.99, 3.01],
     )
-    fwd = make_jax_forward(m, use_pallas=False)
+    fwd = make_jax_forward(m)
     B = 8
     x = np.full((B, m.ndim), 0.5, np.float32)
     c = flop_census(fwd.loglike, x)

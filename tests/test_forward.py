@@ -1,29 +1,41 @@
-"""Golden-model tests for the forward model against the reference's own
-mock spectra (SURVEY.md sections 4 and 6.2).
+"""Golden-model tests for the forward model against the mock spectra
+(SURVEY.md sections 4 and 6.2).
 
-The mocks in /root/reference/testdata/ were generated by the reference's
-forward model with numpy seed 42 noise at sigma=0.02.  Stripping that noise
-recovers the noiseless truth exactly, so reconstructing it with our model is
-a machine-precision parity test of the whole physics pipeline: atomic data,
-Voigt tau, LSF convolution, parameter layout.
+The mocks in testdata/ were generated by mcalf_tpu/mocks.py -- the
+reference generator's construction on a log-uniform grid -- with numpy
+seed 42 noise at sigma=0.02.  Stripping that noise recovers the noiseless
+truth exactly, so reconstructing it with the model on the mock's full grid
+is a machine-precision parity test of the whole physics pipeline: atomic
+data, Voigt tau, LSF convolution, parameter layout.
 """
 
 import numpy as np
 import pytest
 
-from mcalf_tpu.models import AbsorptionModel, make_jax_forward
+from mcalf_tpu import mocks
+from mcalf_tpu.models import AbsorptionModel, CLIGHT_KMS, make_jax_forward
 
 # Multicomponent truth (reference testdata/generate_from_model.py:12-14).
-Z_TRUE = [2.999, 2.9995, 3.0, 3.001, 3.0005, 3.0015, 3.002, 3.0025, 3.0035, 3.0039]
-N_TRUE = [13.6, 13.0, 13.8, 13.6, 13.2, 13.4, 13.5, 14.0, 14.2, 13.7]
-B_TRUE = [17.5, 8.0, 20.0, 25.0, 15.0, 30.0, 10.0, 25.0, 15.0, 20.0]
+Z_TRUE, N_TRUE, B_TRUE = mocks.Z_TRUE, mocks.N_TRUE, mocks.B_TRUE
 
 
 def _noise(npix):
-    # Reference mock noise: np.random.seed(42); normal(0, 0.02)
-    # (generate_from_model.py:52-56).
-    rng = np.random.RandomState(42)
-    return rng.normal(0, 0.02, size=npix)
+    # Mock noise: np.random.seed(42); normal(0, 0.02) over the mock's
+    # whole grid (mocks.py; reference generate_from_model.py:52-56).
+    rng = np.random.RandomState(mocks.NOISE_SEED)
+    return rng.normal(0, mocks.NOISE_SIGMA, size=npix)
+
+
+def _full_grid(path, ncomp):
+    """The mock on its full grid: the fit range's open ends drop the
+    outermost pixels, whose noise draws the noiseless check needs."""
+    return AbsorptionModel.from_file(
+        path,
+        fitrange=[(6179.0, 6221.0)],
+        fitlines=["CIV 1548", "CIV 1550"],
+        ncomp=ncomp,
+        specres=[8.0],
+    )
 
 
 @pytest.fixture(scope="module")
@@ -52,26 +64,32 @@ def multi_model(testdata_dir):
 
 
 def test_layout_and_velstep(single_model, multi_model):
-    # ndim = 1 (ncomp) + 3*ncompmax; velstep from BASELINE.md.
+    # ndim = 1 (ncomp) + 3*ncompmax; velstep from the mock's log-uniform
+    # grid (mocks.log_uniform_grid: wave ratio 1 + 0.96755464/c per pixel;
+    # the model measures c * dlambda / lambda_hi = c * (1 - 1/ratio)).
     assert single_model.ndim == 4
     assert multi_model.ndim == 1 + 3 * 11 == 34
     assert single_model.startind == 0
-    assert abs(single_model.velstep - 0.96755464) < 1e-6
-    assert single_model.npix == 1998
+    ratio = 1.0 + 0.96755464 / CLIGHT_KMS
+    assert abs(single_model.velstep - CLIGHT_KMS * (1.0 - 1.0 / ratio)) < 1e-9
+    # 2000 grid pixels; the open fit range drops the one at 6180.0 exactly
+    assert single_model.npix == 1999
 
 
-def test_singlecomp_mock_machine_precision(single_model):
-    m = single_model
+def test_singlecomp_mock_machine_precision(testdata_dir):
+    m = _full_grid(f"{testdata_dir}/civ_mock_spec.txt", (1, 1))
+    assert m.npix == 2000
     p = np.array([1.0, 13.8, 3.0, 15.0])  # [ncomp, N, z, b]
     model = m.reconstruct_spec(p)
     noiseless = m.obj - _noise(m.npix)
     assert np.max(np.abs(model - noiseless)) < 1e-12
 
 
-def test_multicomp_mock_machine_precision(multi_model):
+def test_multicomp_mock_machine_precision(testdata_dir):
     # The generator built the multicomp mock as the PRODUCT of individually
     # convolved single-component spectra (generate_from_model.py:42-45).
-    m = multi_model
+    m = _full_grid(f"{testdata_dir}/civ_mock_spec_multicomp.txt", (8, 11))
+    assert m.npix == 2000
     model = np.ones(m.npix)
     for N, z, b in zip(N_TRUE, Z_TRUE, B_TRUE):
         p = np.array([1.0, N, z, b])

@@ -159,7 +159,7 @@ def test_resample_equal_distribution():
 
 
 def test_evidence_unbiased_over_seeds():
-    # Seed-ensemble calibration (the VERDICT round-1 gap): the mean logZ over
+    # Seed-ensemble calibration: the mean logZ over
     # many seeds must be consistent with the analytic truth, i.e. the
     # systematic bias must be small compared to the per-run scatter.  This is
     # the regression net for the batch-deletion threshold (off-by-one biases
@@ -285,3 +285,40 @@ def test_canon_layout_gauge_fixing_preserves_evidence():
         for s in range(6)
     ])
     assert abs(z0 - z1) < 0.4, (z0, z1)
+
+
+@pytest.mark.parametrize("clusters", [False, True])
+def test_covariance_products_at_highest_precision(clusters):
+    """The whitening covariance products ask for HIGHEST precision: on a
+    GPU a float32 product may otherwise run in TF32, and a TF32
+    covariance of a contracted live set can turn the Cholesky NaN."""
+    from jax import lax
+
+    from mcalf_tpu.sampler.nested import whitening_factors
+
+    surv = jnp.asarray(
+        np.random.default_rng(0).uniform(size=(40, 5)), jnp.float32
+    )
+    labels = jnp.asarray(np.arange(40) % 3, jnp.int32) if clusters else None
+    jaxpr = jax.make_jaxpr(lambda s: whitening_factors(s, labels, 4))(surv)
+
+    def dots(jx):
+        for eqn in jx.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else (v,):
+                    sub = getattr(sub, "jaxpr", sub)  # ClosedJaxpr -> Jaxpr
+                    if hasattr(sub, "eqns"):
+                        yield from dots(sub)
+
+    found = list(dots(jaxpr.jaxpr))
+    # global: one product; clustered: + the means and the 3-operand einsum (2)
+    assert len(found) == (4 if clusters else 1)
+    for eqn in found:
+        prec = eqn.params["precision"]
+        assert prec is not None and all(
+            p == lax.Precision.HIGHEST for p in prec
+        ), prec
+    chol, logw = whitening_factors(surv, labels, 4)
+    assert np.all(np.isfinite(np.asarray(chol)))

@@ -22,13 +22,12 @@ import pytest
 from mcalf_tpu.models import AbsorptionModel, make_jax_forward
 from mcalf_tpu.sampler import NSConfig, insertion_rank_test, nested_sample
 
-# tools/truth_anchor.py (TPU f32; CPU f32 agrees to well below the
-# tolerance used here).  NOTE the two mock files are DIFFERENT datasets:
-# the reference fixture (/root/reference/testdata, used here via the
-# testdata_dir fixture) has 1998 pixels starting at 6180.02001 A, while the
-# repo-generated testdata/ file has 2000 pixels starting at 6180.0 -- their
-# evidences differ by ~1.9 nats (repo file: 4985.51).
-QUADRATURE_LOGZ = 4983.62
+# tools/truth_anchor.py on the repo's testdata/civ_mock_spec.txt (the
+# testdata_dir fixture; f32 likelihood, platform differences well below
+# the tolerance used here).  The reference's own mock is a DIFFERENT
+# dataset (1998 pixels from 6180.02001 A vs the repo's 2000 from 6180.0);
+# its evidence is ~1.9 nats lower (4983.62).
+QUADRATURE_LOGZ = 4985.51
 
 
 @pytest.fixture(scope="module")

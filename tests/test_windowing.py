@@ -1,18 +1,16 @@
-"""Wing-window machinery (ops.faddeeva.hjert_wing / hjert_harris_win +
-ops.voigt_pallas window flags).
+"""Wing-window machinery (ops.faddeeva.hjert_wing / hjert_harris_win).
 
 The windowed likelihood replaces the full Harris Voigt-Hjerting evaluation
 by its far-wing tail polynomial wherever u^2 exceeds a static threshold
-derived from the prior's tau-amplitude bound (StaticSpec.win_tmin), and the
-fused Pallas kernel additionally SKIPS the Harris work for whole 256-pixel
-chunks no block sample needs.  These tests pin the three contracts:
+derived from the prior's tau-amplitude bound (StaticSpec.win_tmin).  These
+tests pin the contracts:
 
 1. the wing IS the Harris tail: |hjert_harris - hjert_wing| equals the
    dropped e^{-u^2} terms exactly (bounded, not approximated);
-2. the flags are conservative: an unflagged chunk contains no pixel of any
-   active sample inside the Harris region;
-3. the kernel output is INDEPENDENT of the flags (forcing all flags on
-   changes nothing), so flag bugs can only cost speed, never correctness.
+2. the thresholds follow the static prior bound, and MCALF_TPU_WINDOW=0
+   switches windowing off;
+3. windowing changes the likelihood by no more than the dropped
+   exponential, also when windowed and 916-branch transitions mix.
 """
 
 import numpy as np
@@ -21,14 +19,13 @@ import pytest
 
 from mcalf_tpu.models import AbsorptionModel, make_jax_forward
 from mcalf_tpu.models.forward import TAU_CONST
-from mcalf_tpu.models.jax_model import build_consts, static_spec
+from mcalf_tpu.models.jax_model import static_spec
 from mcalf_tpu.ops.faddeeva import (
     HJERT_WIN_TMIN,
     hjert_harris,
     hjert_harris_win,
     hjert_wing,
 )
-from mcalf_tpu.ops import voigt_pallas as vp
 
 
 def test_hjert_wing_is_the_harris_tail():
@@ -105,146 +102,11 @@ def test_static_spec_win_tmin(flagship, monkeypatch):
     assert all(v == 0.0 for v in s0.win_tmin)
 
 
-def _tables(m, n, seed):
-    c = build_consts(m, use_pallas=True)
-    rng = np.random.default_rng(seed)
-    lo, hi = m.bounds_lo, m.bounds_hi
-    p = (lo + rng.uniform(0, 1, size=(n, m.ndim)) * (hi - lo)).astype(
-        np.float32
-    )
-    pidx = np.asarray(c["pidx"])
-    N = p[:, pidx]
-    z = p[:, pidx + 1]
-    b = p[:, pidx + 2]
-    tab = m.transition_table()
-    zmid64 = 0.5 * (
-        np.asarray(m.bounds_lo, np.float64)[tab["pidx"] + 1]
-        + np.asarray(m.bounds_hi, np.float64)[tab["pidx"] + 1]
-    )
-    dz = (z.astype(np.float64) - zmid64).astype(np.float32)
-    dnu = (b * 1e5 * np.asarray(c["inv_wrest_cm"])).astype(np.float32)
-    av = (np.asarray(c["gamma"]) / (4 * np.pi * dnu)).astype(np.float32)
-    nact = np.floor(p[:, m.startind])
-    active = (np.asarray(c["comp_id"])[None] < nact[:, None]) | np.asarray(
-        c["is_fill"]
-    )[None]
-    gain = (TAU_CONST * 10.0**N * np.asarray(c["f"]) / dnu * active).astype(
-        np.float32
-    )
-    return c, dz, gain, av, dnu
-
-
-def _offsets_for(flagship, s, c, dz, gain, dnu):
-    from mcalf_tpu.models.forward import CCGS
-
-    d0 = np.asarray(c["d0"], np.float32)
-    cw = np.asarray(c["c_over_wave"], np.float32)
-    P = cw.shape[0]
-    Pp = -(-(P + max(s.half, 1)) // 128) * 128
-    wins = np.asarray(
-        vp.window_offsets(
-            jnp.asarray(dz), jnp.asarray(gain), jnp.asarray(dnu),
-            jnp.asarray(c["zmid"], jnp.float32),
-            jnp.asarray(CCGS * np.asarray(c["inv_wrest_cm"]), jnp.float32),
-            jnp.asarray(c["wingrid"], jnp.float32), P, s.win_tmin, Pp,
-        )
-    )
-    return wins, d0, cw, P, Pp
-
-
-def test_window_offsets_conservative(flagship):
-    """Every non-overflowed (block, transition) window must contain ALL
-    Harris-region pixels of every active block sample -- checked against a
-    brute-force per-pixel u^2 computed the same way the kernel does."""
-    s = static_spec(flagship, use_pallas=True)
-    c, dz, gain, av, dnu = _tables(flagship, 24, seed=5)
-    wins, d0, cw, P, Pp = _offsets_for(flagship, s, c, dz, gain, dnu)
-    idnu = (1.0 / dnu).astype(np.float32)
-    # brute force u^2 per pixel (f32, same expression as the kernel)
-    u = (d0[None] + dz[:, :, None] * cw[None, None]) * idnu[:, :, None]
-    t = (u * u).astype(np.float64)  # (B, T, P)
-    B, T, _ = t.shape
-    assert B % 8 == 0
-    n_skipped = 0
-    for blk in range(B // 8):
-        sl = slice(blk * 8, blk * 8 + 8)
-        for tr in range(T):
-            start, over = wins[blk, 2 * tr], wins[blk, 2 * tr + 1]
-            if over:
-                continue
-            n_skipped += 1
-            tm = s.win_tmin[tr]
-            near = t[sl, tr, :] < tm            # (8, P)
-            near[gain[sl, tr] == 0] = False
-            cols = np.where(near.any(axis=0))[0]
-            if cols.size:
-                assert cols.min() >= start, (blk, tr, start, cols.min())
-                assert cols.max() < start + vp._W, (blk, tr)
-    assert n_skipped > 0, "no window ever placed -- windowing inert"
-
-
-def test_kernel_output_independent_of_windows(flagship, monkeypatch):
-    """Forcing every block onto the full-width fallback (overflow flags all
-    ON) must reproduce the windowed output to within the dropped
-    exponential: the fallback computes plain hjert_harris, the window path
-    the hjert_harris_win selection; they differ by amp_max * e^{-tmin}
-    < 1e-8 in tau (far below f32 chi^2 roundoff)."""
-    from mcalf_tpu.models.forward import CCGS
-
-    s = static_spec(flagship, use_pallas=True)
-    # clustered samples so the window path actually engages for some blocks
-    rng = np.random.default_rng(11)
-    c, dz, gain, av, dnu = _tables(flagship, 16, seed=6)
-    dz = (dz * 1e-2).astype(np.float32)  # cluster all z near zmid
-    d0 = jnp.asarray(c["d0"])
-    cw = jnp.asarray(c["c_over_wave"])
-    data = jnp.asarray(c["data"])
-    ivar = jnp.asarray(c["ivar"])
-    inn = jnp.asarray(c["inv_noise"])
-    kern = np.full((16, 2 * s.half + 1), 1.0 / (2 * s.half + 1), np.float32)
-    cont = np.ones((16,), np.float32)
-
-    def run():
-        # bypass the jit cache (monkeypatching inside cached traces is a
-        # no-op) -- interpret-mode pallas runs fine eagerly
-        return np.asarray(
-            vp.likelihood_pallas.__wrapped__(
-                jnp.asarray(dz), jnp.asarray(gain), jnp.asarray(av),
-                jnp.asarray(dnu), d0, cw, data, ivar, inn,
-                jnp.asarray(kern), jnp.asarray(cont),
-                zmid=c["zmid"], nu0=CCGS * np.asarray(c["inv_wrest_cm"]),
-                wingrid=c["wingrid"],
-                interpret=True, harris=s.harris, half=s.half,
-                asymm=False, win_tmin=s.win_tmin,
-            )[0]
-        )
-
-    # sanity: some block actually takes the window path at clustered samples
-    wins, *_ = _offsets_for(flagship, s, c, dz, gain, dnu)
-    over = wins.reshape(wins.shape[0], -1, 2)[:, :, 1]
-    assert (over == 0).any(), "every window overflows -- windowing inert"
-
-    baseline = run()
-    real = vp.window_offsets
-
-    def force_overflow(*a, **k):
-        w = real(*a, **k)
-        return w.at[:, 1::2].set(1)
-
-    monkeypatch.setattr(vp, "window_offsets", force_overflow)
-    forced = run()
-    # chi^2 difference bound: 2 sum(ivar |r| |dm|) with |dm| <= T * amp_max
-    # * e^{-tmin} -- dominated in practice by f32 evaluation-order roundoff
-    assert np.allclose(baseline, forced, rtol=1e-5, atol=0.5), (
-        np.max(np.abs(baseline - forced))
-    )
-
-
-def test_mixed_windowed_and_plain_transitions(testdata_dir):
+def test_mixed_windowed_and_plain_transitions(testdata_dir, monkeypatch):
     """A model mixing Harris-regime (windowed) and strong-damping (916,
-    non-windowed) transitions exercises the fused kernel's split path:
-    windowed pairs through the when-branches, plain pairs through the
-    shared _accum_tau skip loop.  Pallas (interpret) must match XLA."""
+    never windowed) transitions: windowing only touches the windowed
+    transitions, so the likelihood matches the unwindowed one to the
+    dropped-exponential bound."""
     m = AbsorptionModel.from_file(
         f"{testdata_dir}/civ_mock_spec_multicomp.txt",
         fitrange=[(6180.0, 6220.0)],
@@ -258,17 +120,19 @@ def test_mixed_windowed_and_plain_transitions(testdata_dir):
         brange=[5.0, 40.0],
         zrange=[2.99, 3.01],
     )
-    s = static_spec(m, use_pallas=True)
+    s = static_spec(m)
     # the mix is real: some pairs windowed, some not
     assert any(v > 0 for v in s.win_tmin) and any(
         v == 0 for v in s.win_tmin
     ), s.win_tmin
-    f_ref = make_jax_forward(m, use_pallas=False)
-    f_pal = make_jax_forward(m, use_pallas=True)
+    assert not all(s.harris)
+    f_win = make_jax_forward(m)
+    monkeypatch.setenv("MCALF_TPU_WINDOW", "0")
+    f_plain = make_jax_forward(m)
     rng = np.random.default_rng(4)
     u = rng.uniform(0.05, 0.95, size=(24, m.ndim)).astype(np.float32)
-    la = np.asarray(f_ref.loglike_cube(u))
-    lb = np.asarray(f_pal.loglike_cube(u))
+    la = np.asarray(f_plain.loglike_cube(u))
+    lb = np.asarray(f_win.loglike_cube(u))
     assert np.allclose(la, lb, rtol=1e-5, atol=0.5), (
         np.max(np.abs(la - lb))
     )
@@ -277,10 +141,10 @@ def test_mixed_windowed_and_plain_transitions(testdata_dir):
 def test_windowed_matches_unwindowed_likelihood(flagship, monkeypatch):
     """End-to-end: windowing changes the log-likelihood by no more than the
     dropped-exponential tau bound (far below f32 chi^2 roundoff)."""
-    fwd_w = make_jax_forward(flagship, use_pallas=False)
+    fwd_w = make_jax_forward(flagship)
     assert any(v > 0 for v in fwd_w.static.win_tmin)
     monkeypatch.setenv("MCALF_TPU_WINDOW", "0")
-    fwd_0 = make_jax_forward(flagship, use_pallas=False)
+    fwd_0 = make_jax_forward(flagship)
     assert all(v == 0 for v in fwd_0.static.win_tmin)
     rng = np.random.default_rng(9)
     u = rng.uniform(0.02, 0.98, size=(64, flagship.ndim)).astype(np.float32)
@@ -292,31 +156,6 @@ def test_windowed_matches_unwindowed_likelihood(flagship, monkeypatch):
     assert np.max(np.abs(lw - l0) / (np.abs(l0) + 1.0)) < 3e-6, (
         np.max(np.abs(lw - l0))
     )
-
-
-def test_window_offsets_inactive_and_outside(flagship):
-    """Edge cases of the placement: fully-inactive transitions and line
-    centers far outside the spectrum produce benign (non-overflow) windows
-    -- the kernel's in-window select then contributes exactly zero."""
-    from mcalf_tpu.models.forward import CCGS
-
-    s = static_spec(flagship, use_pallas=True)
-    c, dz, gain, av, dnu = _tables(flagship, 8, seed=12)
-    # all transitions inactive
-    wins, d0, cw, P, Pp = _offsets_for(
-        flagship, s, c, dz, np.zeros_like(gain), dnu
-    )
-    w = wins.reshape(-1, len(s.win_tmin), 2)
-    assert np.all(w[:, :, 1] == 0), "inactive pairs must not overflow"
-    assert np.all((w[:, :, 0] >= 0) & (w[:, :, 0] <= Pp - vp._W))
-    # line centers pushed far outside the spectrum (dz >> prior): empty
-    # near-intervals, no overflow, in-range starts
-    wins2, *_ = _offsets_for(
-        flagship, s, c, np.full_like(dz, 0.5), gain, dnu
-    )
-    w2 = wins2.reshape(-1, len(s.win_tmin), 2)
-    assert np.all(w2[:, :, 1] == 0)
-    assert np.all((w2[:, :, 0] >= 0) & (w2[:, :, 0] <= Pp - vp._W))
 
 
 def test_hjert_wing_even_symmetry():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Flagship evidence-convergence study (run on the real TPU).
+"""Flagship evidence-convergence study (run on the GPU).
 
 Re-measures the num_repeats ladder for the trans-dimensional 10-component
 CIV flagship fit with the PRODUCTION kernel configuration (canon_layout
@@ -46,7 +46,7 @@ def make_model(ncomp):
 def build_jobs(mode="full"):
     jobs = []
     if mode == "anchor544":
-        # Round-5 ladder re-anchor (VERDICT r4 item 2): the 544-rung limit
+        # Ladder re-anchor: the 544-rung limit
         # was measured with the round-3 kernel; re-pool it with the
         # current (windowed, round-4/5) kernel on four FRESH seeds --
         # independent of the bench's headline seeds 43/44 so the gate is
